@@ -1,7 +1,7 @@
-"""benchmark_spgemm_using_csr_tpu — a TPU-native sparse linear-algebra
+"""benchmark_spgemm_using_csr_tpu — a sparse linear-algebra
 framework with the capabilities of the Liu–Vinter bhSPARSE CSR SpGEMM
 benchmark (weifengliu-ssslab/Benchmark_SpGEMM_using_CSR), re-designed from
-scratch for JAX/XLA/Pallas. See SURVEY.md for the blueprint and the
+scratch for JAX/XLA. See SURVEY.md for the blueprint and the
 reference-availability caveats (the mount was empty; behavior is built to
 the published IPDPS14/JPDC15 algorithm spec and BASELINE.json).
 """

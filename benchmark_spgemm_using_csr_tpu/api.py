@@ -1,4 +1,4 @@
-"""Framework facade — the TPU-native equivalent of the reference's
+"""Framework facade — the equivalent of the reference's
 ``bhsparse`` class (SURVEY.md §2/§3: bhsparse.h exposing initPlatform /
 initData / spgemm / get_nnzC / get_C [R]).
 

@@ -1,4 +1,4 @@
-"""Benchmark CLI driver — the TPU-native equivalent of the reference's
+"""Benchmark CLI driver — the equivalent of the reference's
 ``SpGEMM_cuda/main.cpp`` / ``SpGEMM_opencl/main.cpp`` harness (SURVEY.md §3
 component 1, §4 driver contract [R]).
 
@@ -17,6 +17,9 @@ Behavioral contract matched to the reference driver:
 Extras beyond the reference (flagged, not default): ``--json`` structured
 output, ``--roofline`` per-stage speed-of-light accounting, ``--out``
 JSONL results appending, ``--mesh N`` distributed run.
+
+Runs on the GPU. Without one it exits with an error, unless the CPU was
+asked for explicitly with ``JAX_PLATFORMS=cpu`` (tests, rehearsals).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="benchmark_spgemm_using_csr_tpu",
-        description="CSR SpGEMM benchmark (C = A @ A) on TPU",
+        description="CSR SpGEMM benchmark (C = A @ A) on the GPU",
     )
     p.add_argument(
         "matrix",
@@ -60,9 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--dtype", default="float32",
         choices=["float32", "bfloat16", "float64"],
-        help="float64 enables jax x64 mode and runs the emulated-f64 lanes "
-        "(grouped rides the double-word int32 transport; verify tightens "
-        "to rtol 1e-12 vs the x64 scipy golden)",
+        help="float64 enables jax x64 mode (grouped rides the double-word "
+        "int32 transport; verify tightens to rtol 1e-12 vs the x64 scipy "
+        "golden)",
     )
     p.add_argument("--no-verify", action="store_true", help="skip scipy golden check")
     p.add_argument("--json", action="store_true", help="emit one JSON line instead of text")
@@ -96,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="initialize the multi-host runtime (jax.distributed) before "
         "building the mesh; topology from --coordinator/--num-processes/"
         "--process-id or COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID env "
-        "vars (all omitted = TPU-pod auto-detection). See "
+        "vars (all omitted = JAX's cluster auto-detection). See "
         "parallel/bootstrap.py for the launch recipe.",
     )
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
@@ -135,6 +138,9 @@ def load_matrix(spec: str, dtype):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from .utils.runtime import check_device, init_compile_cache
+
+    init_compile_cache()
     if args.dtype == "float64":
         # must flip BEFORE any jax array is created (x64 truncates
         # otherwise); the reference computes FP64 end-to-end (SURVEY.md §8)
@@ -144,6 +150,7 @@ def main(argv=None) -> int:
 
     import jax.numpy as jnp
 
+    platform = check_device()
     np_dtype = {
         "float32": np.float32,
         "bfloat16": jnp.bfloat16,
@@ -189,9 +196,10 @@ def main(argv=None) -> int:
             )
         devs = jax.devices()
         if len(devs) < args.mesh:
-            devs = jax.devices("cpu")
-        if len(devs) < args.mesh:
-            raise SystemExit(f"need {args.mesh} devices, have {len(devs)}")
+            raise SystemExit(
+                f"--mesh {args.mesh} needs {args.mesh} {platform} devices, "
+                f"have {len(devs)}"
+            )
         mesh = Mesh(np.array(devs[: args.mesh]), ("rows",))
         run = lambda: dist_spgemm(
             a, a, mesh, schedule=args.schedule, ring_hop=args.ring_hop
@@ -234,6 +242,7 @@ def main(argv=None) -> int:
         "gflops_best": res.gflops_best,
         "nnz_per_s": res.nnz_per_s,
         "verified": verified,
+        "device": device_record(),
     }
 
     if args.out:
@@ -255,7 +264,11 @@ def main(argv=None) -> int:
             print(f"verify     : {'PASS' if verified else 'FAIL'} (vs scipy golden)")
 
     if args.roofline:
-        from .utils.roofline import roofline_report, spgemm_stage_models
+        from .utils.roofline import (
+            chip_spec,
+            roofline_report,
+            spgemm_stage_models,
+        )
 
         models = spgemm_stage_models(
             nnz_a=nnz_a,
@@ -265,10 +278,24 @@ def main(argv=None) -> int:
             nnz_c=nnz_c,
             itemsize={"float32": 4, "bfloat16": 2, "float64": 8}[args.dtype],
         )
-        report = roofline_report(models, total_time_s=res.mean_s)
+        # the CPU has no peak table entry: bytes and flops only
+        chip = None if platform == "cpu" else chip_spec()
+        report = roofline_report(models, total_time_s=res.mean_s, chip=chip)
         print(json.dumps(report, indent=2, default=float))
 
     return 0 if verified in (True, None) else 1
+
+
+def device_record() -> dict:
+    """The device every printed result ran on."""
+    import jax
+
+    devs = jax.devices()
+    return {
+        "platform": devs[0].platform,
+        "kind": devs[0].device_kind,
+        "count": len(devs),
+    }
 
 
 def run_spadd(args, a, a_sp, nnz_a: int) -> int:
@@ -309,6 +336,7 @@ def run_spadd(args, a, a_sp, nnz_a: int) -> int:
         "min_s": res.min_s,
         "gflops": res.gflops,
         "verified": verified,
+        "device": device_record(),
     }
     if args.out:
         from .utils.results import write_result
@@ -369,6 +397,7 @@ def run_sptrsv(args, a_sp) -> int:
         "min_s": res.min_s,
         "gflops": res.gflops,
         "verified": verified,
+        "device": device_record(),
     }
     if args.out:
         from .utils.results import write_result
@@ -423,6 +452,7 @@ def run_spmv_spmm(args, a, a_sp, nnz_a: int) -> int:
         "min_s": res.min_s,
         "gflops": res.gflops,
         "verified": verified,
+        "device": device_record(),
     }
     if args.out:
         from .utils.results import write_result

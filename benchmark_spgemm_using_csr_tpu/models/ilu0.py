@@ -1,8 +1,8 @@
 """ILU(0) factorization demo on sharded/padded CSR (BASELINE.json:5
 "ILU0-style factorization demo on the same sharded CSR substrate").
 
-TPU-native design: the classic Gaussian-elimination ILU0 is sequential per
-row, which maps terribly to a vector machine. We instead implement the
+Design: the classic Gaussian-elimination ILU0 is sequential per row,
+which maps terribly to a data-parallel machine. We instead implement the
 fine-grained *iterative* ILU (Chow & Patel, SIAM J. Sci. Comput. 2015):
 every nonzero's equation
 

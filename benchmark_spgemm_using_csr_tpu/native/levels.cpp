@@ -3,8 +3,8 @@
 // Level of row i = 1 + max(level of its in-triangle dependencies): the
 // longest dependency chain ending at i in the triangular-solve DAG. Rows
 // sharing a level are independent and solve in one parallel step. This is
-// the host-side symbolic phase of the level-scheduled SpTRSV (the TPU
-// analogue of the synchronization-free GPU SpTRSV family that accompanies
+// the host-side symbolic phase of the level-scheduled SpTRSV (the
+// level-set analogue of the synchronization-free GPU SpTRSV family that accompanies
 // the bhSPARSE/SpGEMM benchmark line); the sweep is a trivial sequential
 // O(nnz) pass — exactly the kind of host hot loop the reference keeps in
 // C++ (SURVEY.md §3: native components get native equivalents).

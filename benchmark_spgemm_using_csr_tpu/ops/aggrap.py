@@ -12,8 +12,7 @@ is a *relabel-and-merge* of A's entries: every A entry (i, j, v)
 contributes ``rv[i] * v * pv[j]`` to C[aggR(i), aggP(j)] — there is no
 product expansion at all (each A entry meets exactly one R entry and one
 P entry). The general triple pipeline (ops/reuse.spgemm_triple) is
-descriptor-floor-bound at ~3 gathers per product (BASELINE.md round 4:
-9.39 ms ≈ its 980k descriptors); here EVERYTHING positional is known at
+bound by its ~3 arbitrary-index gathers per product; here EVERYTHING positional is known at
 plan time, so the hot path has ZERO arbitrary-index gathers:
 
 - destination keys ``(I << cbits) | J`` and the scale constants

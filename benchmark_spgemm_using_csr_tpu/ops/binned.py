@@ -1,15 +1,16 @@
-"""Stage 2+3 — binned numeric path: the TPU re-design of the reference's
+"""Stage 2+3 — binned numeric path: a re-design of the reference's
 heap / bitonic-ESC / merge trio (SURVEY.md §4).
 
 The reference bins rows by intermediate-product count into 38 bins and
 dispatches three GPU methods (heap for small rows, bitonic ESC in shared
-memory for mid rows, merge-path in global memory for long rows). The TPU
+memory for mid rows, merge-path in global memory for long rows). This
 re-design keeps the *binning* idea — it is the load-balancing story — but
 replaces all three methods with one shape-specialized primitive: gather each
 bin's rows into a dense (rows x width) tile, sort every row along the lane
 axis with XLA's batched sort, and compress duplicates with a per-row
-segmented scan (BASELINE.json:5: "tile CSR rows into dense MXU-friendly
-blocks with segmented-scan merges instead of per-thread heaps").
+segmented scan (ops/sortmerge.bin_sort_compress) — BASELINE.json:5: "tile
+CSR rows into dense blocks with segmented-scan merges instead of per-thread
+heaps".
 
 Rows whose product count exceeds the largest tile width go through the
 global ESC sort on just their products (the merge-method analogue); rows
@@ -29,6 +30,7 @@ import numpy as np
 
 from ..sparse.csr import CSR, INDEX_DTYPE, csr_gather_rows, pad_bucket
 from .esc import gather_products, spgemm_esc_padded
+from .sortmerge import bin_sort_compress
 from .symbolic import nnz_upper_bound
 
 DEFAULT_WIDTHS = (8, 32, 128, 512)
@@ -57,74 +59,16 @@ def _bin_numeric(a: CSR, b: CSR, rows, nnz_ct, prodstart, *, width: int):
     _, col, val = gather_products(a, b, jnp.where(valid, g, 0), valid)
 
     col = jnp.where(valid, col, n)  # sentinel sorts to the end of each row
-    col, val = jax.lax.sort(
-        (col, val), dimension=1, num_keys=1, is_stable=False
-    )
-
-    valid_s = col < n
-    prev = jnp.concatenate(
-        [jnp.full((r_pad, 1), -1, col.dtype), col[:, :-1]], axis=1
-    )
-    is_head = (col != prev) & valid_s
-    pos = jnp.cumsum(is_head.astype(INDEX_DTYPE), axis=1) - 1
-    counts = jnp.sum(is_head, axis=1).astype(INDEX_DTYPE)
-
+    cols_t, vals_t, pos, counts = bin_sort_compress(col, val, n_sentinel=n)
+    # compact each row's run tails to its first counts[r] lanes
     row2d = jax.lax.broadcasted_iota(INDEX_DTYPE, (r_pad, width), 0)
-    out_vals = (
-        jnp.zeros((r_pad, width), val.dtype)
-        .at[row2d, jnp.where(valid_s, pos, width)]
-        .add(val, mode="drop")
+    out_cols = jnp.zeros((r_pad, width), INDEX_DTYPE).at[row2d, pos].set(
+        cols_t, mode="drop"
     )
-    out_cols = (
-        jnp.zeros((r_pad, width), INDEX_DTYPE)
-        .at[row2d, jnp.where(is_head, pos, width)]
-        .set(col, mode="drop")
+    out_vals = jnp.zeros((r_pad, width), val.dtype).at[row2d, pos].set(
+        vals_t, mode="drop"
     )
     return out_cols, out_vals, counts
-
-
-@partial(jax.jit, static_argnames=("width", "interpret"))
-def _bin_numeric_pallas(
-    a: CSR, b: CSR, rows, nnz_ct, prodstart, *, width: int, interpret: bool = False
-):
-    """Pallas variant of the per-bin numeric kernel: the gather stays XLA,
-    but sort + duplicate-merge + position run as ONE fused Mosaic kernel in
-    VMEM (ops/pallas_kernels.bin_sort_compress) instead of XLA's lane sort
-    plus ~6 elementwise HBM round-trips.
-
-    Returns (cols, vals, pos, counts): run-tail entries with per-entry
-    unique positions — scatter straight into C via ``_scatter_bin_pos``.
-    """
-    from .pallas_kernels import bin_sort_compress
-
-    m, n = a.m, b.n
-    rows_c = jnp.minimum(rows, m - 1)
-    in_range = rows < m
-    lens = jnp.where(in_range, nnz_ct[rows_c], 0)
-    start = jnp.where(in_range, prodstart[rows_c], 0)
-
-    lane = jnp.arange(width, dtype=INDEX_DTYPE)
-    valid = lane[None, :] < lens[:, None]
-    g = start[:, None] + lane[None, :]
-    _, col, val = gather_products(a, b, jnp.where(valid, g, 0), valid)
-    col = jnp.where(valid, col, n)
-
-    return bin_sort_compress(col, val, n_sentinel=n, interpret=interpret)
-
-
-@jax.jit
-def _scatter_bin_pos(colidx_buf, vals_buf, rowptr, rows, cols_t, vals_t, pos):
-    """Stage-4 compaction from the Pallas kernel's (pos)-indexed output:
-    entry lane l of row r lands at rowptr[row] + pos[r, l] (pos == width
-    marks non-tail lanes, dropped)."""
-    out_capacity = colidx_buf.shape[0]
-    width = cols_t.shape[1]
-    valid = pos < width
-    base = rowptr[rows]
-    tgt = jnp.where(valid, base[:, None] + pos, out_capacity)
-    colidx_buf = colidx_buf.at[tgt].set(cols_t, mode="drop")
-    vals_buf = vals_buf.at[tgt].set(vals_t, mode="drop")
-    return colidx_buf, vals_buf
 
 
 @jax.jit
@@ -200,12 +144,8 @@ def spgemm_binned_host(
     prod_capacity: int,
     out_capacity: int | None = None,
     widths=DEFAULT_WIDTHS,
-    backend: str = "xla",
 ) -> CSR:
-    """Full binned SpGEMM (host-orchestrated over jitted stages).
-
-    backend: 'xla' (lane sort + elementwise compress) or 'pallas' (fused
-    Mosaic sort+merge kernel; interpret-mode off-TPU)."""
+    """Full binned SpGEMM (host-orchestrated over jitted stages)."""
     m, n = a.m, b.n
     out_capacity = out_capacity or prod_capacity
     nnz_ct_dev = _nnz_upper_bound(a, b)
@@ -215,23 +155,14 @@ def spgemm_binned_host(
     )
 
     bins, tail = make_plan(nnz_ct, widths)
-    use_pallas = backend == "pallas"
-    interpret = jax.default_backend() != "tpu"
 
     pieces = []
     for w, rows in bins.items():
         rows_dev = jnp.asarray(rows)
-        if use_pallas:
-            cols_t, vals_t, pos, counts = _bin_numeric_pallas(
-                a, b, rows_dev, nnz_ct_dev, prodstart_dev,
-                width=w, interpret=interpret,
-            )
-            pieces.append((rows_dev, cols_t, vals_t, counts, pos))
-        else:
-            cols_t, vals_t, counts = _bin_numeric(
-                a, b, rows_dev, nnz_ct_dev, prodstart_dev, width=w
-            )
-            pieces.append((rows_dev, cols_t, vals_t, counts, None))
+        cols_t, vals_t, counts = _bin_numeric(
+            a, b, rows_dev, nnz_ct_dev, prodstart_dev, width=w
+        )
+        pieces.append((rows_dev, cols_t, vals_t, counts))
 
     c_tail = None
     tail_dev = None
@@ -245,7 +176,7 @@ def spgemm_binned_host(
         c_tail = spgemm_esc_padded(a_tail, b, prod_tail, prod_tail)
 
     counts_full = jnp.zeros(m, INDEX_DTYPE)
-    for rows_dev, _, _, counts, _ in pieces:
+    for rows_dev, _, _, counts in pieces:
         counts_full = _counts_add(counts_full, rows_dev, counts)
     if c_tail is not None:
         counts_full = _counts_add(
@@ -255,15 +186,10 @@ def spgemm_binned_host(
 
     colidx_buf = jnp.zeros(out_capacity, INDEX_DTYPE)
     vals_buf = jnp.zeros(out_capacity, a.vals.dtype)
-    for rows_dev, cols_t, vals_t, counts, pos in pieces:
-        if pos is not None:
-            colidx_buf, vals_buf = _scatter_bin_pos(
-                colidx_buf, vals_buf, rowptr, rows_dev, cols_t, vals_t, pos
-            )
-        else:
-            colidx_buf, vals_buf = _scatter_bin(
-                colidx_buf, vals_buf, rowptr, rows_dev, cols_t, vals_t, counts
-            )
+    for rows_dev, cols_t, vals_t, counts in pieces:
+        colidx_buf, vals_buf = _scatter_bin(
+            colidx_buf, vals_buf, rowptr, rows_dev, cols_t, vals_t, counts
+        )
     if c_tail is not None:
         colidx_buf, vals_buf = _scatter_tail(
             colidx_buf, vals_buf, rowptr, tail_dev, c_tail

@@ -1,26 +1,25 @@
-"""Block-sparse (BSR) SpGEMM — the MXU numeric path.
+"""Block-sparse (BSR) SpGEMM — the block-matmul numeric path.
 
 The BASELINE north-star asks for kernels that "tile CSR rows into dense
-MXU-friendly blocks". For matrices with block-local structure (banded, FEM
+blocks". For matrices with block-local structure (banded, FEM
 stencils, power-law hub columns), converting to BSR and multiplying dense
-(bm x bk)·(bk x bn) blocks on the systolic array converts the irregular
+(bm x bk)·(bk x bn) blocks converts the irregular
 gather/sort problem into a *batched matmul* problem:
 
 1. **block-pair expansion** — the block-level analogue of the scalar
    chunked expansion (scatter+cumsum entry map; block rows are short so
    chunk width 1 suffices);
-2. **batched block matmul** on the MXU: ``einsum('pij,pjk->pik')`` over all
+2. **batched block matmul**: ``einsum('pij,pjk->pik')`` over all
    pairs at once — this is where the FLOPs go, at matmul speed;
 3. **duplicate merge** by (block-row, block-col) key: one small sort over
    pair *metadata* (never the block payloads), then a scatter-add of
    product blocks into their unique output slots (contiguous bm*bn-sized
-   updates — the efficient scatter shape on TPU).
+   updates).
 
 Trade-off: FLOPs are inflated by the inverse block density (zeros inside
-blocks are multiplied too), but the MXU's ~2 orders of magnitude throughput
-advantage over the gather/sort pipeline makes this the fastest path whenever
-mean block density is above ~1%. The facade picks CSR-chunked vs BSR by
-that density heuristic — the TPU re-interpretation of the reference's
+blocks are multiplied too), but dense block matmuls run far above the
+gather/sort pipeline's rate, so this path wins on block-dense matrices.
+The cost model in ops/dispatch decides, the analogue of the reference's
 per-regime method dispatch (heap/ESC/merge, SURVEY.md §4 stage 3).
 """
 from __future__ import annotations
@@ -89,11 +88,8 @@ def bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
     pair_valid = pid < total
     # packed per-ENTRY metadata table -> ONE (P, 3) pair-stream gather
     # (round 5): the separate starts[src] / b.rowptr[a.colidx[src]] /
-    # a_brows[src] chains issued 3-4 descriptor streams per pair; the
-    # K-scan prefix decomposition (scripts/ab_bsr_stages.py) showed the
-    # metadata prefix alone was 1.56 of the 2.42 ms dense_rows_2k total,
-    # i.e. the path is descriptor-floor-bound (CLAUDE.md: pack
-    # multi-field lookups into one table).
+    # a_brows[src] chains issued 3-4 gather streams per pair; one packed
+    # table gather replaces them.
     ent_tbl = jnp.stack(
         [
             a_brows.astype(INDEX_DTYPE),
@@ -108,14 +104,12 @@ def bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
     brow = jnp.where(pair_valid, meta[:, 0], mb).astype(INDEX_DTYPE)
     bcol = jnp.where(pair_valid, b.colidx[b_idx], 0).astype(INDEX_DTYPE)
 
-    # --- 2. batched block matmul on the MXU --------------------------------
+    # --- 2. batched block matmul -------------------------------------------
     a_blk = a.blocks[src]  # (P, bm, bk) — contiguous block-sized gathers
     b_blk = b.blocks[b_idx]  # (P, bk, bn)
-    # HIGHEST: 3-pass bf16 on the MXU ≈ f32 accuracy (default bf16 rounding
-    # of inputs fails the scipy-golden tolerance). f64 lane (round 5,
-    # VERDICT r4 #4): XLA's double-double-emulated f64 einsum, measured
-    # 1.89 TF/s on this chip in the dense path (scripts/ab_f64.py) — the
-    # accumulator and output blocks stay f64 end-to-end.
+    # HIGHEST keeps f32 products at f32 accuracy (the default may round
+    # inputs to TF32, which fails the scipy-golden tolerance). The f64
+    # lane keeps accumulator and output blocks f64 end-to-end.
     acc_dt = (
         jnp.float64 if a.blocks.dtype == jnp.float64 else F32
     )
@@ -209,13 +203,11 @@ def bsr_viable(
     bsr_ns_per_pair: float = 50.0,
 ) -> bool:
     """Cost-model dispatch for C = A @ A: shape divisibility, product-block
-    memory, and an honest time comparison — ~15 ns per intermediate product
-    on the chunked sort/gather path vs ~50 ns per (8,128)x(128,128) block
-    pair on the MXU path (both measured 2026-08-17 with the full-output
-    probe; the old 2% block-density heuristic was calibrated against
-    DCE-tainted chunked timings and under-dispatched BSR — poisson2d at
-    0.78% occupancy runs 4x faster on BSR, scripts/ab_bsr_poisson.py).
-    Pure numpy — no scipy BSR conversion (~25 s on random 1M-nnz)."""
+    memory, and a time comparison — a per-product cost on the chunked
+    sort/gather path vs a per-(8,128)x(128,128)-block-pair cost on the
+    block-matmul path. The defaults are coarse and uncalibrated;
+    api.spgemm's auto dispatch uses the calibrated model in ops/dispatch
+    instead. Pure numpy — no scipy BSR conversion."""
     bm, bk = block_shape
     m, n = a.shape
     if m % bm or n % bk or m % bk or n % bk:

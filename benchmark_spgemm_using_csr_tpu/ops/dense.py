@@ -1,26 +1,22 @@
-"""Dense-MXU SpGEMM for small high-fill matrices — scatter, matmul, extract.
+"""Dense-matmul SpGEMM for small high-fill matrices — scatter, matmul, extract.
 
 When C = A @ B is nearly structurally dense (mouse_gene / dense_rows regime,
 SURVEY.md §8: every row hundreds of nnz, fill of C ~1), the reference's
 merge kernels and our sort-based paths pay per-product irregular-memory cost
-for structure that is almost all-ones. The TPU-native answer is to put the
-FLOPs where the hardware wants them — the MXU:
+for structure that is almost all-ones. The answer is to put the FLOPs
+where the hardware is fastest — one dense matmul:
 
   1. scatter CSR values into dense operand tiles (one collision-free
      scatter-SET per matrix, ~nnz descriptors — cheap at this regime's nnz),
-  2. one dense matmul (`precision=HIGHEST` to hold f32 golden tolerances,
-     CLAUDE.md),
+  2. one dense matmul (`precision=HIGHEST` to hold f32 golden tolerances:
+     the default may run float32 in TF32),
   3. extract C's values at the *static* structural positions computed at
-     plan time. Extraction mode chosen by hole fraction (measured A/B,
-     round 5 — VERDICT r4 #3 asked for the scan-tail port and the
-     measurement says it LOSES on the dense regime's near-full C):
+     plan time. Extraction mode chosen by hole fraction:
      'identity' at zero holes; 'shift' (monotone log2(holes)-pass
-     compaction) when holes < slots/8 — at dense_rows_8k's ~full C the
-     shift passes cost ~0.39 ns/slot total vs the one-pass scan's
-     ~0.63 ns/slot dus-append machinery (30.0 vs 25.0 GF measured,
-     2026-08-21); 'scan' (ops/scancompact on plan-constant keys,
-     max_run=1) for sparser C, where log2(holes) approaches log2(slots)
-     and the single pass wins.
+     compaction) when holes < slots/8, where few passes beat the
+     one-pass scan's append machinery; 'scan' (ops/scancompact on
+     plan-constant keys, max_run=1) for sparser C, where log2(holes)
+     approaches log2(slots) and the single pass wins.
 
 Unlike the BSR/DIA format paths, the output matches the scalar paths'
 structural semantics exactly: the plan's rowptr/colidx are the boolean
@@ -47,7 +43,7 @@ from .chunked import _shift_compact
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class DensePlan:
-    """Static structural plan for the dense-MXU path.
+    """Static structural plan for the dense path.
 
     rowptr/colidx: C's structural CSR pattern (pattern product, host-built).
     mode 'shift': p1/p2 = per-slot keep flag / left-displacement (holes
@@ -127,7 +123,7 @@ def csr_to_dense(a: CSR) -> jax.Array:
 
 
 def spgemm_dense(a: CSR, b: CSR, plan: DensePlan) -> CSR:
-    """C = A @ B on the MXU (jit-able). Structure comes from the plan; only
+    """C = A @ B by one dense matmul (jit-able). Structure comes from the plan; only
     values are computed on device."""
     da = csr_to_dense(a)
     # C = A @ A squaring: trace one densification scatter, not two (XLA CSE

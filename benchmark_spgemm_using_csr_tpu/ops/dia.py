@@ -8,11 +8,9 @@ known at trace time: ``C`` lives on the offset-sums ``d1 + d2``. Every term
 
 is a *compile-time-shifted* elementwise multiply-add over length-n planes:
 zero gathers, zero sorts, pure HBM-bandwidth work that XLA fuses into a
-handful of vector ops. This sidesteps the TPU gather-descriptor wall
-(CLAUDE.md) entirely — the reference's CSR kernels (bin dispatcher + heap/
+handful of vector ops. The reference's CSR kernels (bin dispatcher + heap/
 ESC/merge, SURVEY.md §4) pay irregular-memory cost even on these matrices;
-a GPU thread can gather cheaply, a TPU cannot, so format dispatch IS the
-TPU-native redesign here (same move as the BSR/MXU path in ops/bsr.py).
+format dispatch avoids it (same move as the BSR path in ops/bsr.py).
 
 All offsets are static Python ints → shifts lower to ``lax.slice`` and the
 kernel jit-compiles to one fused pipeline. Dispatch from CSR is decided by
@@ -30,49 +28,17 @@ from ..sparse.csr import CSR, host_view
 from ..sparse.dia import DIA
 
 
-def dia_spgemm(a: DIA, b: DIA, fused: bool | None = None) -> DIA:
+def dia_spgemm(a: DIA, b: DIA) -> DIA:
     """C = A @ B entirely on diagonal planes (jit-able; offsets static).
 
     Cost: ndiag(A) * ndiag(B) length-n fused FMAs — bandwidth-bound, no
     data-dependent memory access. Invalid slots stay exactly 0 because both
     inputs honor the DIA zero-outside-matrix invariant.
-
-    fused: route through the Pallas multi-plane kernel
-    (ops/dia_pallas.dia_spgemm_fused) that keeps every plane VMEM-resident
-    per column block. Measured on-chip 2026-08-20: the kernel only beats
-    the XLA gather form on LARGE-n few-diagonal matrices (mc2depi_524k
-    232 -> 197 us); it loses at small n (poisson2d_256: kernel overheads
-    dominate a ~25-85 us body) and the Mosaic compiler crashes outright
-    at nd >= ~25 with bj >= 4096 (stencil27/banded — apparently the nd^2
-    live shifted windows blow VMEM inside the compiler). Default
-    (fused=None): AUTO — route to the kernel only inside its measured win
-    region (f32, nd_a·nd_b <= 81, n >= 2^18, shift span within a block,
-    TPU backend); everywhere else the XLA gather form stays the
-    production path (110-130 GF on the suite's diagonal members), and the
-    roofline prices its irreducible per-term re-read traffic honestly
-    (utils/roofline.dia_stage_models).
     """
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
-    if fused is None:
-        span = (
-            max(0, max(b.offsets, default=0))
-            + max(0, -min(b.offsets, default=0))
-        )
-        fused = (
-            len(a.offsets) * len(b.offsets) <= 81
-            and n >= (1 << 18)
-            and span <= 4096
-            and a.dtype == jnp.float32
-            and b.dtype == jnp.float32
-            and jax.default_backend() == "tpu"
-        )
-    if fused:
-        from .dia_pallas import dia_spgemm_fused
-
-        return dia_spgemm_fused(a, b)
     off_c = sorted({d1 + d2 for d1 in a.offsets for d2 in b.offsets})
     out_dtype = jnp.result_type(a.dtype, b.dtype)
     if not off_c:  # either operand all-zero (no stored diagonals)
@@ -87,13 +53,9 @@ def dia_spgemm(a: DIA, b: DIA, fused: bool | None = None) -> DIA:
     a_pad = jnp.pad(a.data.astype(out_dtype), ((0, 0), (pad_l, pad_r)))
 
     # GATHER form: each C plane is an independent sum of its (d1, d2) terms
-    # (d1 + d2 == dc). The earlier scatter-add accumulator formulation
-    # read-modify-wrote the FULL (nd_c, n) stack once per B diagonal —
-    # nd_b * 2 * nd_c * n * 4 bytes of pure accumulator traffic (36 MB x 27
-    # iterations on stencil27_32, measured sol_fraction 0.008); summing per
-    # output plane lets XLA fuse each plane into one pass with no
-    # read-modify-write. Delta-timed 2026-08-19: stencil27 2.99 -> 0.34 ms,
-    # poisson2d_256 0.149 -> 0.059 ms.
+    # (d1 + d2 == dc). A scatter-add accumulator would read-modify-write the
+    # FULL (nd_c, n) stack once per B diagonal; summing per output plane
+    # lets XLA fuse each plane into one pass with no read-modify-write.
     a_slot = {d: s for s, d in enumerate(a.offsets)}
     terms: dict[int, list] = {dc: [] for dc in off_c}
     for s2, d2 in enumerate(b.offsets):
@@ -149,11 +111,11 @@ def dia_viable(
 ) -> bool:
     """Cost-model dispatch for C = A @ A (the analogue of ops/bsr.bsr_viable).
 
-    DIA work is ndiag^2 * n plane-slot FMAs (bandwidth, ~0.1 ns/slot
-    conservative) plus ~25 us of op overhead per B diagonal, versus the
-    measured ~15 ns per intermediate product on the chunked sort/gather path
-    (calibrated 2026-08-17 with the full-output probe, see bsr_viable).
-    Memory: the C accumulator holds <= ndiag^2 planes of n values.
+    DIA work is ndiag^2 * n plane-slot FMAs plus a per-diagonal op
+    overhead, versus a per-product cost on the chunked sort/gather path.
+    The defaults are coarse and uncalibrated; api.spgemm's auto dispatch
+    uses the calibrated model in ops/dispatch instead. Memory: the C
+    accumulator holds <= ndiag^2 planes of n values.
     """
     offs = dia_offsets_of(a)
     nd = len(offs)

@@ -1,8 +1,8 @@
 """Global ESC (Expand–Sort–Compress) SpGEMM — the baseline numeric path.
 
 The reference's stage-3 numeric phase uses three per-bin GPU methods (heap /
-bitonic-ESC / merge-path, SURVEY.md §4). On TPU the idiomatic analogue of the
-ESC method is *global*: materialize every intermediate product as a (row,
+bitonic-ESC / merge-path, SURVEY.md §4). The data-parallel analogue of the
+ESC method here is *global*: materialize every intermediate product as a (row,
 col, val) triple in one padded buffer, lexicographically sort by (row, col)
 with XLA's fused multi-operand sort, and compress duplicates with a
 segmented scan — all static shapes, no per-row launches, no heaps.

@@ -1,12 +1,11 @@
-"""Hash-path numeric kernel — the TPU re-design of the reference's
+"""Hash-path numeric kernel — a re-design of the reference's
 hash/merge method for long power-law rows (BASELINE.json config #4
 "mouse_gene / dense-ish power-law matrix (long rows, hash-kernel path)";
 SURVEY.md §9 step 5 "hash-path variant ... per-row hash table").
 
 On a GPU the hash method builds a per-row open-addressing table in shared
-memory with linear probing. Linear probing is inherently serial and maps
-terribly onto the VPU; the TPU-native equivalent is the *perfect* hash — a
-dense accumulator row of width n in HBM:
+memory with linear probing. Here the table is the *perfect* hash — a dense accumulator row of width
+n in HBM — so no probing is needed:
 
     acc[r, col] += val        (one scatter-add over all products)
     occ[r, col] |= True       (structural-occupancy mask)

@@ -9,7 +9,7 @@ refactorization, Jacobian refills on a fixed mesh — only need stage 3
 (numeric) once the pattern is known: the cusparse ``spgemm_reuse`` /
 MKL two-stage ("numeric phase with known pattern") capability.
 
-TPU-native design: the host plan enumerates the full product stream
+Design: the host plan enumerates the full product stream
 (every (A[i,k], B[k,j]) pair) *sorted by destination slot in C*, so the
 device pass is completely sort-free and scatter-free:
 

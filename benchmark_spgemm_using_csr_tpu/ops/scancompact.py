@@ -1,10 +1,9 @@
 """Fused runsum + tail-compaction as ONE sequential block scan.
 
 The production tail (ops/chunked._segmented_runsum + _shift_compact +
-global tails cumsum) costs ~#disp_bits full-stream passes: profiling
-2026-08-20 put it at 124 + 25 ms of scircuit_256k's 322 ms grouped
-pipeline (prod_cap 46.1M, 23 displacement bits). The pass count is
-log2(total holes) — irreducible for any global shift compaction.
+global tails cumsum) costs ~#disp_bits full-stream passes (23 at
+scircuit_256k's 46.1M-slot stream). The pass count is log2(total holes) —
+irreducible for any global shift compaction.
 
 This variant processes the sorted stream in blocks under ``lax.scan``:
 
@@ -23,13 +22,10 @@ for runs straddling any number of blocks is carried via (last key, last
 group, running sum); group boundaries break chains exactly like the
 production path (runs never straddle groups).
 
-Block size (swept on-chip 2026-08-21, scripts/micro_scanblock.py, both
-48M- and 9.4M-slot scircuit-shaped streams): per-slot cost falls
-monotonically from 16Ki to the knee at 256Ki (0.98 → 0.563 ns/slot at
-48M; 0.788 → 0.647 at 9.4M) — scan-iteration overhead (carry plumbing +
-the two dynamic_update_slice appends) dominates the extra log2(B)
-local passes — then REGRESSES 1.7-2.2x at 512Ki/1Mi (per-pass
-temporaries spill VMEM). Default 262144.
+Block size: larger blocks amortize the scan-iteration overhead (carry
+plumbing + the two dynamic_update_slice appends) against log2(B) extra
+local passes. Default 262144, inherited from the first platform's sweep
+and not yet re-derived on the GPU.
 """
 from __future__ import annotations
 
@@ -46,7 +42,7 @@ def _seg_scan(flag, x, passes):
     """Segmented inclusive sum within a block (log passes). The flag
     shifts in TRUE: its window clips at the block start, and shifting in
     False would cut the first elements' connectivity and drop the
-    cross-block carry (caught by scripts/micro_scancompact.py)."""
+    cross-block carry."""
     f = flag
     for p in (1 << np.arange(passes)):
         xs = jnp.concatenate([jnp.zeros(p, x.dtype), x[:-p]])
@@ -98,11 +94,12 @@ def runsum_compact_scan(
     okey: (S,) uint32 sorted within each w-slot group, SENTINEL padding.
     oval: (S,) f32 product values in the same order.
     """
-    # MISCOMPILE GUARD (round 4, 2026-08-20): when the sorted stream is
+    # MISCOMPILE GUARD: when the sorted stream is
     # produced inside the same jit (the production pipeline: 2D sort ->
     # reshape(-1) -> this scan), streams LARGER THAN 2^23 slots whose group
-    # width w is NOT a multiple of `block` compute garbage tails — BOTH on
-    # XLA:CPU and XLA:TPU, deterministically, content-dependent (found via
+    # width w is NOT a multiple of `block` compute garbage tails on XLA:CPU
+    # (and on the first platform's compiler), deterministically,
+    # content-dependent (found via
     # the circuit_64k heavy-row split, W=131040, s=9.43M: kept 6.95M vs
     # 8.82M true; regression test tests/test_scancompact_fusion.py).
     # Bisected: s <= 2^23 ok, flat params ok, returning the sort output
@@ -176,7 +173,7 @@ def runsum_compact_scan(
     # shard_map they inherit the inputs' varying manual axes — plain
     # constants are unvarying and lax.scan rejects the carry type
     # mismatch once the body's outputs become varying (hit by the
-    # distributed grouped kernel, dryrun 2026-08-20)
+    # distributed grouped kernel)
     zero_i = (okey[0] ^ okey[0]).astype(jnp.int32)
     zero_v = oval[0] * jnp.zeros((), oval.dtype)
     out_col0 = jnp.zeros(out_cap + b, jnp.int32) + zero_i

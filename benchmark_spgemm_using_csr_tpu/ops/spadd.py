@@ -2,8 +2,8 @@
 
 The reference repo is SpGEMM-only, but its parent bhSPARSE project ships
 the full CSR kernel family (SpMV / SpGEMM / addition); sparse addition is
-also what AMG setup uses to assemble I + omega*S smoothers. TPU-native
-design: addition is a degenerate merge — concatenate the two operands'
+also what AMG setup uses to assemble I + omega*S smoothers. Design:
+addition is a degenerate merge — concatenate the two operands'
 (row, col, val) streams and reuse the chunked pipeline's sort-merge core
 (ops/chunked.merge_products), where every (row, col) run has length <= 2,
 so the segmented run-sum is a single shift-add pass. One dispatch, static

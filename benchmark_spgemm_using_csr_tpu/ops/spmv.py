@@ -4,8 +4,8 @@ SpMV/SpMM"; the reference itself has no SpMV — this is required new surface).
 Two designs:
 - CSR gather–multiply–segment-sum: bandwidth-bound, one fused XLA graph.
   Right for very sparse rows.
-- BSR x dense via batched ``jnp.dot``: routes the FLOPs through the MXU with
-  dense (bm, bn) blocks — the TPU-idiomatic path for blocky matrices.
+- BSR x dense via batched ``jnp.dot``: routes the FLOPs through dense
+  (bm, bn) block matmuls — the path for blocky matrices.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ def spmm(a: CSR, x: jax.Array) -> jax.Array:
 
 @jax.jit
 def bsr_spmm(a: BSR, x: jax.Array) -> jax.Array:
-    """Y = A @ X with A in BSR — each (bm, bn) block hits the MXU via a
+    """Y = A @ X with A in BSR — each (bm, bn) block is one matmul of a
     batched dot over stored blocks, then a segment-sum over block rows."""
     bm, bn = a.block_shape
     mb = a.shape[0] // bm

@@ -1,9 +1,9 @@
-"""Exact sparse triangular solve (SpTRSV) — level-scheduled, TPU-native.
+"""Exact sparse triangular solve (SpTRSV) — level-scheduled.
 
 The reference repo is the SpGEMM benchmark of the bhSPARSE line, whose
 kernel family also covers synchronization-free GPU SpTRSV; this is the
-TPU-native counterpart. GPU designs spin on per-row "ready" flags — a
-data race by construction and impossible under XLA. TPU-native redesign:
+XLA counterpart. Those CUDA designs spin on per-row "ready" flags — not
+expressible under XLA. Design:
 
 - Host symbolic phase: compute each row's dependency *level* (longest
   chain in the triangular-solve DAG; `native/levels.cpp`, C++ with a

@@ -4,7 +4,7 @@ Reference behavior (SURVEY.md §4 stage 1; kernel ``compute_nnzCt_*`` in
 bhsparse_cuda.h [R]): for each row i of C,
 ``nnzCt[i] = sum_{j in cols(A[i,:])} nnz(B[j,:])``.
 
-TPU-native: a gather of B row lengths at A's column indices followed by a
+Design: a gather of B row lengths at A's column indices followed by a
 segment-sum over A's row ids — two fused XLA ops, no kernel launch per row.
 ``2 * sum(nnzCt)`` is the canonical flop count used for GFlops
 (BASELINE.md metric definitions).

@@ -2,11 +2,11 @@
 stencil/FEM regime (poisson2d, cant/consph analogues) where every row's
 intermediate-product count fits one narrow power-of-two width.
 
-This is the reference's small-bin (heap-method) regime done TPU-first in
-ONE dispatch: gather each row's products into an (m, W) lane tile (scatter+
-cumsum entry map, packed gathers — the chunked expansion machinery), then
-run the fused Pallas bitonic-sort + segmented-merge + position kernel
-(ops/pallas_kernels.bin_sort_compress) over all rows at once, and scatter
+This is the reference's small-bin (heap-method) regime in ONE dispatch:
+gather each row's products into an (m, W) lane tile (scatter+cumsum entry
+map, packed gathers — the chunked expansion machinery), then run the
+per-row sort + segmented-merge + position pass
+(ops/sortmerge.bin_sort_compress) over all rows at once, and scatter
 run-tails straight into C. No global product sort at all: per-row W-lane
 networks replace the two full-stream sorts of the chunked path — the win
 when W is small and fill is high (uniform rows).
@@ -35,7 +35,6 @@ class TiledPlan:
     width: int  # lane width (pow2) >= max nnzCt
     prod_cap: int  # padded total products (entry-map domain)
     out_cap: int  # padded nnzC bound
-    interpret: bool = False  # Pallas interpret mode (non-TPU backends)
 
 
 def make_tiled_plan(a: CSR, b: CSR, max_width: int = 512) -> TiledPlan | None:
@@ -55,14 +54,13 @@ def make_tiled_plan(a: CSR, b: CSR, max_width: int = 512) -> TiledPlan | None:
         width=width,
         prod_cap=pad_gentle(total),
         out_cap=pad_gentle(int(np.minimum(nnz_ct, b.n).sum())),
-        interpret=jax.default_backend() != "tpu",
     )
 
 
 @partial(jax.jit, static_argnames=("plan",))
 def spgemm_tiled(a: CSR, b: CSR, plan: TiledPlan) -> CSR:
-    """C = A @ B in one dispatch via per-row lane tiles + the Pallas kernel."""
-    from .pallas_kernels import bin_sort_compress
+    """C = A @ B in one dispatch via per-row lane tiles + per-row sorts."""
+    from .sortmerge import bin_sort_compress
 
     m, n = a.m, b.n
     W = plan.width
@@ -110,10 +108,8 @@ def spgemm_tiled(a: CSR, b: CSR, plan: TiledPlan) -> CSR:
     val = jnp.where(valid, jax.lax.bitcast_convert_type(tile[:, :, 1], F32)
                     * a_val, 0.0)
 
-    # --- fused Pallas sort + merge + positions -----------------------------
-    cols_t, vals_t, pos, counts = bin_sort_compress(
-        col, val, n_sentinel=n, interpret=plan.interpret
-    )
+    # --- per-row sort + merge + positions ----------------------------------
+    cols_t, vals_t, pos, counts = bin_sort_compress(col, val, n_sentinel=n)
 
     # --- stage 4: rowptr + pos-scatter compaction --------------------------
     rowptr = jnp.concatenate(

@@ -1,17 +1,13 @@
-"""Packed-tile ESC SpGEMM — per-tile VMEM sort networks replace the global
-product sort for short-row matrices.
+"""Packed-tile ESC SpGEMM — per-tile sorts replace the global product sort
+for short-row matrices.
 
-The chunked path's profile on er-like matrices (scripts/
-profile_chunked_stages.py, v5e 2026-08-18) is dominated by the GLOBAL
-(row, col) sort: 44.8 of 91 ms at ~3.5 ns/elem — XLA's comparison sort
-pays log2(12.6M) ~ 265 comparator stages. But the product stream is
-already grouped by C row (chunks are emitted in A-entry order), so only
-*within-row* order is missing. This path packs several complete C rows
-into each (width)-lane tile row and sorts every tile independently in
-VMEM with the fused Pallas kernel (ops/pallas_kernels.tile_sort_merge):
-log2(width)^2/2 ~ 45-55 stages, one HBM read + one write — measured
-1.2-1.45 G elem/s vs the global sort's 0.31 G elem/s
-(scripts/micro_tilesort.py).
+The chunked path sorts the whole (row, col) product stream at once, which
+costs log2(stream) comparator stages. But the product stream is already
+grouped by C row (chunks are emitted in A-entry order), so only *within-row*
+order is missing. This path packs several complete C rows into each
+(width)-lane tile row and sorts every tile independently
+(ops/sortmerge.tile_sort_merge): log2(width) stages on short rows that the
+sort keeps in fast memory.
 
 Pipeline (one dispatch; stage numbers = reference SURVEY.md §4):
 
@@ -23,14 +19,13 @@ Pipeline (one dispatch; stage numbers = reference SURVEY.md §4):
    (scatter+cumsum, ops/chunked machinery) and fetch products as whole
    (2*al)-int32 rows of the al-aligned packed B copy — al pairs per
    gather descriptor (ops/chunked._expand_aligned's trick);
-3. per-tile Pallas sort of packed (local_row << cbits | col) keys +
-   segmented duplicate merge + tail positions + per-local-row counts
-   (stage-3 ESC, entirely in VMEM);
+3. per-tile sort of packed (local_row << cbits | col) keys + segmented
+   duplicate merge + tail positions + per-local-row counts (stage-3 ESC);
 4. rowptr from per-(tile, local_row) counts (one m-gather + cumsum);
    monotone shift compaction of run tails into the exact CSR (stage 4).
 
-Applicability (make_tilepack_plan returns None otherwise): every C row's
-padded product count fits one tile (long-row matrices keep the chunked
+Applicability (make_tilepack_plan returns None otherwise): values are at
+most 32 bits wide, every C row's padded product count fits one tile (long-row matrices keep the chunked
 path), local-row + column bits fit the int32 key, and the structural
 product is small enough to count exactly on the host.
 """
@@ -64,11 +59,9 @@ class TilePackPlan:
     disp_bits: int  # bits of the max compaction displacement
     scatter_set: bool  # collision-free scatter-SET propagation
     # pow2 >= the ACTUAL max rows packed in any tile (not the w/al upper
-    # bound): sizes the kernel's per-local-row count loop and the key's
-    # local-row bits — er-like tiles hold ~4-6 rows, so this cuts the
-    # kernel's count reductions ~16x vs the worst-case w/al
+    # bound): sizes the per-local-row count reduction and the key's
+    # local-row bits — er-like tiles hold ~4-6 rows
     wlr_eff: int = 0
-    interpret: bool = False  # Pallas interpret mode off-TPU
 
     @property
     def wlr(self) -> int:
@@ -102,6 +95,8 @@ def make_tilepack_plan(
     m, n = a.m, b.n
     if m == 0 or n == 0:
         return None
+    if max(np.dtype(a.vals.dtype).itemsize, np.dtype(b.vals.dtype).itemsize) > 4:
+        return None  # values ride as float32 bits in the packed B table
     a_rowptr = host_view(a.rowptr)[: m + 1].astype(np.int64)
     nnz_a = int(a_rowptr[-1])
     b_rowptr = host_view(b.rowptr).astype(np.int64)
@@ -194,7 +189,6 @@ def make_tilepack_plan(
         disp_bits=max(int(t_cap * w - nnz_c).bit_length(), 1),
         scatter_set=scatter_set,
         wlr_eff=wlr_eff,
-        interpret=jax.default_backend() != "tpu",
     )
     return TilePackSchedule(
         plan=plan,
@@ -215,7 +209,7 @@ def spgemm_tilepack(a: CSR, b: CSR, sched: TilePackSchedule) -> CSR:
 def _spgemm_tilepack(
     a: CSR, b: CSR, slot0, q, first_rank, plan: TilePackPlan
 ) -> CSR:
-    from .pallas_kernels import tile_sort_merge
+    from .sortmerge import tile_sort_merge
 
     m, n = a.m, b.n
     al, W, wlr = plan.al, plan.w, plan.wlr
@@ -338,10 +332,9 @@ def _spgemm_tilepack(
     key2 = key.reshape(plan.t_cap, W)
     val2 = valm.reshape(plan.t_cap, W)
 
-    # ---- per-tile fused sort + merge + positions + local-row counts ------
+    # ---- per-tile sort + merge + positions + local-row counts ------------
     okey, oval, pos_t, cnt_lr = tile_sort_merge(
         key2, val2, sentinel=SENTINEL, wlr=plan.wlr_eff, cbits=plan.cbits,
-        interpret=plan.interpret,
     )
 
     # ---- rowptr from per-(tile, local-row) counts ------------------------

@@ -3,8 +3,8 @@ bootstrap via ``jax.distributed.initialize``"; BASELINE.json config #5,
 "N>=2 hosts"). The reference is single-GPU and has no analogue; this is the
 mandated new-design entry point.
 
-Launch recipe (one process per host; TPU pods discover topology
-automatically, CPU/GPU fleets pass the triplet explicitly):
+Launch recipe (one process per host; the triplet is passed explicitly,
+or discovered by JAX's cluster auto-detection where one exists):
 
     # host 0 (also runs the coordinator service)
     COORDINATOR_ADDRESS=host0:9876 NUM_PROCESSES=4 PROCESS_ID=0 \
@@ -17,11 +17,10 @@ automatically, CPU/GPU fleets pass the triplet explicitly):
 After ``init_multihost()``, ``jax.devices()`` is the GLOBAL device list;
 ``global_mesh()`` builds the 1D row mesh over it and every schedule in
 ``parallel.dist`` / ``parallel.halo`` works unchanged (shard_map over a
-multi-host mesh inserts ICI/DCN collectives; the halo exchange's
-ragged_all_to_all rides the same path). This machine exposes ONE local TPU,
-so real N>=2-host runs cannot execute here — the wiring is unit-tested with
-a 1-process initialize (tests/test_bootstrap.py) and the schedules with the
-8-device virtual CPU mesh.
+multi-host mesh inserts cross-host collectives; the halo exchange's
+all_to_all rides the same path). The wiring is unit-tested with a
+1-process initialize (tests/test_bootstrap.py) and the schedules with the
+8-device virtual CPU mesh; multi-host runs have not been made.
 """
 from __future__ import annotations
 
@@ -50,8 +49,8 @@ def init_multihost(
     """Initialize the JAX distributed runtime and return the topology.
 
     Arguments default to the COORDINATOR_ADDRESS / NUM_PROCESSES /
-    PROCESS_ID environment variables (and to JAX's own auto-detection on
-    TPU pods, where all three may be omitted). Idempotent: a second call
+    PROCESS_ID environment variables (and to JAX's own cluster
+    auto-detection, where all three may be omitted). Idempotent: a second call
     in the same process returns the existing topology.
     """
     import jax

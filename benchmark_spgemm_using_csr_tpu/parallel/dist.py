@@ -27,7 +27,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..sparse.csr import CSR, INDEX_DTYPE, host_view, pad_bucket
 from ..ops.chunked import (
@@ -139,6 +139,19 @@ def shard_rows(
     return ShardedCSR(
         jnp.asarray(rp), jnp.asarray(ci), jnp.asarray(va), (m, n),
         bounds=bounds_t,
+    )
+
+
+def on_mesh(x: ShardedCSR, mesh: Mesh, axis: str = "rows") -> ShardedCSR:
+    """Place shard i of every field on device i of ``mesh``. Arrays built on
+    the host land on the default device, and a shard_map call would move
+    them from there on every call."""
+    sharding = NamedSharding(mesh, P(axis))
+    return dataclasses.replace(
+        x,
+        rowptr=jax.device_put(x.rowptr, sharding),
+        colidx=jax.device_put(x.colidx, sharding),
+        vals=jax.device_put(x.vals, sharding),
     )
 
 
@@ -595,7 +608,7 @@ def _ring_exec(mesh, axis, n, st: RingStatics, val_dtype):
     right neighbour, (2) expand the chunk slice of the block HELD NOW, (3)
     carry the permuted block — the collective depends only on the held
     block, so XLA's async collectives overlap it with the expansion
-    (double-buffering; measured via scripts/bench_scaling.py)."""
+    (double-buffering)."""
     P_, k, cap_step = st.n_shards, st.k, st.cap_step
     H = st.hop
     G = P_ // H
@@ -890,8 +903,10 @@ _SHARD_CACHE: dict = {}
 _PLAN_CACHE: dict = {}
 
 
-def shard_rows_cached(a: CSR, n_shards: int) -> ShardedCSR:
-    key = (id(a.rowptr), id(a.colidx), id(a.vals), n_shards)
+def shard_rows_cached(a: CSR, mesh: Mesh, axis: str = "rows") -> ShardedCSR:
+    """``shard_rows`` over the mesh's ``axis``, placed on the mesh, cached
+    per (matrix, mesh)."""
+    key = (id(a.rowptr), id(a.colidx), id(a.vals), mesh, axis)
     hit = _SHARD_CACHE.get(key)
     if hit is None:
         if len(_SHARD_CACHE) > 64:
@@ -899,9 +914,8 @@ def shard_rows_cached(a: CSR, n_shards: int) -> ShardedCSR:
         # hold the keyed buffers: id() values recycle after GC and a stale
         # hit would return another matrix's sharded form (same bug class as
         # ops/dispatch._stats)
-        hit = _SHARD_CACHE[key] = (
-            shard_rows(a, n_shards), (a.rowptr, a.colidx, a.vals)
-        )
+        sharded = on_mesh(shard_rows(a, mesh.shape[axis]), mesh, axis)
+        hit = _SHARD_CACHE[key] = (sharded, (a.rowptr, a.colidx, a.vals))
     return hit[0]
 
 
@@ -912,7 +926,8 @@ def dist_spgemm(
     """Host-facing distributed C = A @ B: shard, run, unshard.
 
     schedule: 'replicated' (B on every device), 'ring' (B row-sharded,
-    ppermute rotation) or 'halo' (B row-sharded, ragged all-to-all).
+    ppermute rotation) or 'halo' (B row-sharded, remote rows fetched by a
+    padded all-to-all).
     Sharded forms and local plans are cached per (matrix, P).
 
     ring_hop: blocks per resident ring super-buffer (None = P//4 when it
@@ -923,7 +938,7 @@ def dist_spgemm(
         from .halo import spgemm_halo
 
         return spgemm_halo(a, b, mesh, axis)
-    a_sh = shard_rows_cached(a, n_shards)
+    a_sh = shard_rows_cached(a, mesh, axis)
     pkey = (id(a.rowptr), id(a.colidx), id(b.rowptr), n_shards, schedule)
     hit = _PLAN_CACHE.get(pkey)
     plan = hit[0] if hit is not None else None
@@ -968,7 +983,7 @@ def dist_spgemm(
         plan = hit[0] if hit is not None else None
         if plan is None:
             plan = _remember(make_ring_plan(a, b, n_shards, hop=ring_hop))
-        b_sh = shard_rows_cached(b, n_shards)
+        b_sh = shard_rows_cached(b, mesh, axis)
         c_sh = dist_spgemm_ring(
             a_sh, b_sh, b.rowptr, mesh, axis=axis, ring_plan=plan
         )

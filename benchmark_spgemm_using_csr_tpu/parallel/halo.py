@@ -1,21 +1,24 @@
 """Halo-exchange distributed SpGEMM: B row-sharded, remote B rows fetched
-via ``jax.lax.ragged_all_to_all`` (BASELINE.json config #5 and north-star:
-"exchanging remote B rows (the halo of A's column indices) via ragged
-all-to-all collectives"; SURVEY.md §7.8/§9 step 7 phase B).
+by a padded ``all_to_all`` exchange (BASELINE.json config #5 and
+north-star: "exchanging remote B rows (the halo of A's column indices) via
+ragged all-to-all collectives"; SURVEY.md §7.8/§9 step 7 phase B). The
+exchange is ragged in content and padded in shape: ``jax.lax.
+ragged_all_to_all`` is not implemented on XLA:CPU and returned wrong halo
+rows on four H100s at webbase_1m scale (PERF.md), so it is not used.
 
 The reference is single-GPU — this subsystem is new design. Structure:
 
 1. **Host halo plan** (off the hot path, like the reference's host-side
    stage-2 binning): for each shard j, the sorted unique global B rows its
    local A columns touch (the *halo*); for each owner/requester pair (i, j)
-   the payload slice owner i must send requester j. All ragged offsets /
+   the payload slice owner i must send requester j. All slice offsets /
    sizes are host-precomputed into (P, P) tables, and local A's column ids
    are remapped to halo-local row indices so the device-side compute is a
    plain local SpGEMM against the assembled halo-B.
 
 2. **Device exchange + compute** under ``shard_map``: gather the send
-   payload rows from local B (one ragged row gather), two
-   ``ragged_all_to_all`` calls (colidx + vals) land every requested row
+   payload rows from local B (one ragged row gather), two exchanges
+   (colidx + vals) land every requested row
    contiguously in global-row order on the requester, then expand–sort–
    compress the local product stream. XLA overlaps the collective with the
    local expansion automatically (both depend only on inputs).
@@ -44,7 +47,13 @@ from ..ops.chunked import (
     row_product_offsets,
     spgemm_chunked,
 )
-from .dist import ShardedCSR, make_dist_local_plan, shard_rows, unshard
+from .dist import (
+    ShardedCSR,
+    make_dist_local_plan,
+    on_mesh,
+    shard_rows,
+    unshard,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +64,12 @@ class HaloPlan:
     send_rows: jax.Array  # (P, send_rows_cap) local B row ids, dest-major, pad k_loc
     input_offsets: jax.Array  # (P, P) offsets into the send payload per dest
     send_sizes: jax.Array  # (P, P)
-    output_offsets: jax.Array  # (P, P) where my slice lands on each receiver
     recv_sizes: jax.Array  # (P, P)
     recv_offsets: jax.Array  # (P, P) [j, i]: where i's slice lands in j's halo
     halo_rowptr: jax.Array  # (P, halo_rows_cap + 1) rowptr of assembled halo B
     send_payload_cap: int
     halo_nnz_cap: int
-    chunk_cap: int  # max single (i -> j) slice, for the padded-a2a fallback
+    chunk_cap: int  # max single (i -> j) slice: the padded exchange width
     prod_cap: int
     out_cap: int
     shape_b: Tuple[int, int]
@@ -143,8 +151,9 @@ def build_halo_plan(
     recv_sizes = szmat.T.copy().astype(np.int32)
     # input_offsets[i, j]: exclusive cumsum over j within owner i's buffer
     input_offsets = (np.cumsum(szmat, axis=1) - szmat).astype(np.int32)
-    # output_offsets[i, j]: exclusive cumsum over i within j's halo
-    output_offsets = (np.cumsum(szmat, axis=0) - szmat).astype(np.int32)
+    # recv_offsets[j, i]: where i's slice lands in j's halo (exclusive
+    # cumsum over owners i)
+    recv_offsets = (np.cumsum(szmat, axis=0) - szmat).T.astype(np.int32)
 
     # send row lists, owner-major then requester-major then row-sorted:
     # exactly the (owner, requester, row) lexicographic order of the
@@ -202,9 +211,8 @@ def build_halo_plan(
         send_rows=jnp.asarray(send_rows),
         input_offsets=jnp.asarray(input_offsets),
         send_sizes=jnp.asarray(send_sizes),
-        output_offsets=jnp.asarray(output_offsets),
         recv_sizes=jnp.asarray(recv_sizes),
-        recv_offsets=jnp.asarray(output_offsets.T.copy()),
+        recv_offsets=jnp.asarray(recv_offsets),
         halo_rowptr=jnp.asarray(halo_rowptr),
         send_payload_cap=send_payload_cap,
         halo_nnz_cap=halo_nnz_cap,
@@ -218,13 +226,12 @@ def build_halo_plan(
 def _padded_a2a_exchange(
     data, out, in_off, send_sz, recv_off, recv_sz, axis: str, chunk_cap: int
 ):
-    """Padded-all-to-all emulation of ragged_all_to_all for backends that
-    lack the ragged HLO (XLA:CPU — SURVEY.md §9 hard-part (d) fallback).
+    """The B-row exchange: a ragged all-to-all carried by a padded one.
 
     Each (sender, receiver) slice is padded to the static ``chunk_cap``; the
     dense (P, chunk_cap) tensor rides one ``all_to_all``, then slices land at
     their receiver-side offsets via a masked scatter. Extra bytes moved:
-    sum(chunk_cap - size) — the price of raggedness on this backend.
+    sum(chunk_cap - size) — the price of raggedness.
     """
     n_shards = in_off.shape[0]
     lane = jnp.arange(chunk_cap, dtype=INDEX_DTYPE)
@@ -246,28 +253,21 @@ def dist_spgemm_halo(
     b: ShardedCSR,
     mesh: Mesh,
     axis: str = "rows",
-    use_ragged: bool | None = None,
 ) -> ShardedCSR:
-    """Run the halo-exchange schedule: exchange B rows, local SpGEMM.
-
-    use_ragged: force the native ragged_all_to_all path (TPU) or the padded
-    all_to_all fallback (CPU); default auto-detects from the mesh platform.
-    """
+    """Run the halo-exchange schedule: exchange B rows, local SpGEMM."""
     m, k = plan.a_sh.shape
     n = plan.shape_b[1]
-    if use_ragged is None:
-        use_ragged = next(iter(mesh.devices.flat)).platform == "tpu"
     fn = _halo_exec(
         mesh, axis, plan.a_sh.m_loc, b.m_loc, n,
         plan.halo_rowptr.shape[1] - 1, plan.send_payload_cap,
         plan.halo_nnz_cap, plan.chunk_cap, plan.prod_cap, plan.out_cap,
-        use_ragged, plan.local_plan,
+        plan.local_plan,
     )
     rowptr, colidx, vals = fn(
         plan.a_sh.rowptr, plan.a_sh.colidx, plan.a_sh.vals,
         b.rowptr, b.colidx, b.vals,
         plan.send_rows, plan.input_offsets, plan.send_sizes,
-        plan.output_offsets, plan.recv_sizes, plan.recv_offsets,
+        plan.recv_sizes, plan.recv_offsets,
         plan.halo_rowptr,
     )
     return ShardedCSR(rowptr, colidx, vals, (m, n), bounds=plan.a_sh.bounds)
@@ -276,7 +276,7 @@ def dist_spgemm_halo(
 @functools.lru_cache(maxsize=128)
 def _halo_exec(
     mesh, axis, m_loc, k_loc, n, halo_rows_cap, send_payload_cap,
-    halo_nnz_cap, chunk_cap, prod_cap, out_cap, use_ragged,
+    halo_nnz_cap, chunk_cap, prod_cap, out_cap,
     local_plan: ChunkedPlan | None = None,
 ):
     """Cached compiled halo executable (re-tracing shard_map per call costs
@@ -284,7 +284,7 @@ def _halo_exec(
 
     def local_fn(
         a_rp, a_ci, a_va, b_rp, b_ci, b_va,
-        send_rows, in_off, send_sz, out_off, recv_sz, recv_off, halo_rp,
+        send_rows, in_off, send_sz, recv_sz, recv_off, halo_rp,
     ):
         # 1. gather send payload rows from local B (dest-major concatenation)
         b_loc = CSR(b_rp[0], b_ci[0], b_va[0], (k_loc, n))
@@ -292,27 +292,15 @@ def _halo_exec(
 
         payload = csr_gather_rows(b_loc, send_rows[0], send_payload_cap)
 
-        # 2. ragged exchange of colidx + vals
-        halo_ci = jnp.zeros(halo_nnz_cap, INDEX_DTYPE)
-        halo_va = jnp.zeros(halo_nnz_cap, a_va.dtype)
-        if use_ragged:
-            halo_ci = jax.lax.ragged_all_to_all(
-                payload.colidx, halo_ci,
-                in_off[0], send_sz[0], out_off[0], recv_sz[0], axis_name=axis,
-            )
-            halo_va = jax.lax.ragged_all_to_all(
-                payload.vals, halo_va,
-                in_off[0], send_sz[0], out_off[0], recv_sz[0], axis_name=axis,
-            )
-        else:
-            halo_ci = _padded_a2a_exchange(
-                payload.colidx, halo_ci, in_off[0], send_sz[0],
-                recv_off[0], recv_sz[0], axis, chunk_cap,
-            )
-            halo_va = _padded_a2a_exchange(
-                payload.vals, halo_va, in_off[0], send_sz[0],
-                recv_off[0], recv_sz[0], axis, chunk_cap,
-            )
+        # 2. exchange of colidx + vals
+        halo_ci = _padded_a2a_exchange(
+            payload.colidx, jnp.zeros(halo_nnz_cap, INDEX_DTYPE), in_off[0],
+            send_sz[0], recv_off[0], recv_sz[0], axis, chunk_cap,
+        )
+        halo_va = _padded_a2a_exchange(
+            payload.vals, jnp.zeros(halo_nnz_cap, a_va.dtype), in_off[0],
+            send_sz[0], recv_off[0], recv_sz[0], axis, chunk_cap,
+        )
 
         # 3. local SpGEMM against the assembled halo-B: the FULL tuned
         # single-chip chunked pipeline when a local plan is given (aligned
@@ -339,7 +327,7 @@ def _halo_exec(
             in_specs=(
                 P(axis), P(axis), P(axis),  # A
                 P(axis), P(axis), P(axis),  # B
-                P(axis), P(axis), P(axis), P(axis), P(axis), P(axis), P(axis),
+                P(axis), P(axis), P(axis), P(axis), P(axis), P(axis),
             ),
             out_specs=(P(axis), P(axis), P(axis)),
         )
@@ -350,6 +338,7 @@ def spgemm_halo(a: CSR, b: CSR, mesh: Mesh, axis: str = "rows") -> CSR:
     """Host-facing halo-schedule C = A @ B: plan, shard B, run, unshard."""
     n_shards = mesh.shape[axis]
     plan = build_halo_plan(a, b, n_shards)
-    b_sh = shard_rows(b, n_shards)
+    plan = dataclasses.replace(plan, a_sh=on_mesh(plan.a_sh, mesh, axis))
+    b_sh = on_mesh(shard_rows(b, n_shards), mesh, axis)
     c_sh = dist_spgemm_halo(plan, b_sh, mesh, axis)
     return unshard(c_sh)

@@ -1,13 +1,12 @@
-"""DIA (diagonal) sparse container — the TPU-native format for stencil /
-banded matrices.
+"""DIA (diagonal) sparse container — the format for stencil / banded
+matrices.
 
 The reference benchmark stores everything in CSR (SURVEY.md §1) and pays the
 irregular gather/sort cost even for perfectly regular stencil matrices
 (cant/consph FEM, mc2depi 5-point, banded regimes — SURVEY.md §8's suite).
-On TPU that cost is the descriptor-rate gather wall (CLAUDE.md); the
-structurally right answer for diagonal-structured matrices is to store the
-diagonals densely so every kernel becomes *static-shift vector arithmetic*:
-no gathers, no sorts, pure HBM-bandwidth VPU work. This is the same
+The structurally right answer for diagonal-structured matrices is to store
+the diagonals densely so every kernel becomes *static-shift vector
+arithmetic*: no gathers, no sorts, pure HBM-bandwidth work. This is the same
 format-specialization move the bhSPARSE project family applies on GPUs
 (CSR5/DIA-style formats), re-derived for XLA: offsets are static Python
 metadata, so every shift is a compile-time `lax.slice` and the whole SpGEMM

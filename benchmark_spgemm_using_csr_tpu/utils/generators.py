@@ -185,8 +185,8 @@ def fem_irregular(
     (block occupancy collapses) can take them and the mid-row ESC kernels
     carry the product. The regular ``fem`` generator turned out to have only
     ~99 distinct scalar diagonals (27 stencil offsets x dof sub-diagonals),
-    which the DIA gather form exploits for a ~100x win (round 4 A/B,
-    scripts/ab_fem_dia.py) — a legitimate dispatch for THAT matrix, but it
+    which the DIA gather form exploits — a legitimate dispatch for THAT
+    matrix, but it
     vacates the irregular-FEM test regime. This generator restores it: the
     permutation preserves the row-length distribution and product structure
     exactly (C_perm = P @ C @ P^T) while destroying diagonal locality."""

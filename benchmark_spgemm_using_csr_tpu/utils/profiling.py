@@ -2,8 +2,8 @@
 in TensorBoard/Perfetto, plus a simple stage-timer registry that pairs with
 the roofline models.
 
-The reference's equivalent is utils.h CUDA-event timers [R]; on TPU the
-trace is the ground truth (per-fusion HBM/flops counters) and the wall-clock
+The reference's equivalent is utils.h CUDA-event timers [R]; here the
+profiler trace is the ground truth for per-kernel device time and the wall-clock
 harness in utils/timing.py is the benchmark number.
 """
 from __future__ import annotations

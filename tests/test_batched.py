@@ -76,7 +76,7 @@ def test_batched_fused_single_dispatch_dense():
 
 
 def test_batched_forced_dense_blocks():
-    """Dense-MXU per-block path (r3 rebuild): forced method, multi-block,
+    """Dense per-block path (r3 rebuild): forced method, multi-block,
     every extraction mode reachable (full / shift / gather)."""
     a = CSR.from_scipy(generators.dense_rows(96, 96, nnz_per_row=48, seed=5))
     c = spgemm_batched(a, a, stream_budget=50_000, method="dense")

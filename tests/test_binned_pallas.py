@@ -1,5 +1,4 @@
-"""Binned SpGEMM with the Pallas fused sort+merge backend (interpret mode
-on CPU) vs scipy golden."""
+"""Binned SpGEMM (per-bin sort + merge, ops/sortmerge) vs scipy golden."""
 import pytest
 
 from benchmark_spgemm_using_csr_tpu import CSR, pad_bucket, spgemm_flops
@@ -21,5 +20,5 @@ MATRICES = {
 def test_binned_pallas_backend(name):
     a = CSR.from_scipy(MATRICES[name]())
     cap = pad_bucket(spgemm_flops(a, a) // 2)
-    c = spgemm_binned_host(a, a, prod_capacity=cap, backend="pallas")
+    c = spgemm_binned_host(a, a, prod_capacity=cap)
     assert_csr_equal(c, spgemm_reference(a, a), rtol=1e-4, atol=1e-5)

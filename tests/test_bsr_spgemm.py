@@ -1,4 +1,4 @@
-"""BSR (MXU-path) SpGEMM vs scipy golden, dense-compared to sidestep
+"""BSR (block-matmul path) SpGEMM vs scipy golden, dense-compared to sidestep
 explicit-zero canonicalization."""
 import numpy as np
 import pytest

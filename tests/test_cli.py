@@ -66,3 +66,9 @@ def test_cli_roofline(capsys):
 def test_load_matrix_unknown_suite():
     with pytest.raises(SystemExit):
         load_matrix("suite:nope", None)
+
+
+def test_cli_mesh_too_large_raises():
+    # 8 virtual devices: a 16-device mesh must fail, not fall back
+    with pytest.raises(SystemExit, match="needs 16"):
+        main(["gen:er:128", "--runs", "1", "--warmup", "0", "--mesh", "16"])

@@ -1,4 +1,4 @@
-"""Dense-MXU SpGEMM path vs scipy golden — exact structural semantics
+"""Dense-matmul SpGEMM path vs scipy golden — exact structural semantics
 (pattern-product structure, explicit zeros kept), plus the cost-model
 dispatcher."""
 import numpy as np
@@ -66,19 +66,16 @@ def test_dense_empty_rows():
 
 
 def test_choose_method_regimes():
-    # expectations track the on-chip A/B calibration table in ops/dispatch.py
-    # (scripts/ab_dispatch.py): stencil regimes -> dia, banded and mid-size
-    # dense-rows -> bsr (measured winners), irregular -> chunked, large
-    # dense-rows -> full-MXU dense
+    # expectations track the calibration points of ops/dispatch.COST
+    # (scripts/calibrate_dispatch.py on the GPU): stencil and banded
+    # regimes -> dia, mid-size dense-rows -> bsr, large dense-rows -> dense,
+    # short-row ER -> a per-tile/per-group sort path
     assert choose_method(CSR.from_scipy(generators.poisson2d(64))) == "dia"
-    assert choose_method(CSR.from_scipy(generators.banded(1024, 8))) == "bsr"
-    # small-er sits on a measured knife edge between the sort paths (~2-3 ms
-    # each, under the 26 ms dispatch floor); any sort-based pick is right
+    assert choose_method(CSR.from_scipy(generators.banded(1024, 8))) == "dia"
     assert choose_method(
         CSR.from_scipy(generators.erdos_renyi(4096, 4096, 8.0))
     ) in ("tilepack", "chunked", "grouped")
-    # at er_medium scale the A/B table is unambiguous: tilepack 65.8 ms vs
-    # grouped8 72.8 vs chunked-al8 90.5 (scripts/ab_grouped.py 2026-08-19)
+    # at er_medium scale tilepack measured fastest of the sort paths
     assert choose_method(
         CSR.from_scipy(generators.SUITE["er_medium"]())
     ) == "tilepack"

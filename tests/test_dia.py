@@ -160,3 +160,30 @@ def test_zero_matrix_dia_and_auto_dispatch():
     for method in ("auto", "dia"):
         c = spgemm(z, z, method=method)
         assert int(np.asarray(c.rowptr)[-1]) == 0
+
+
+def _xla_form_check(a_sp, b_sp):
+    """dia_spgemm's output planes, read back as CSR, against scipy."""
+    got = dia_spgemm(
+        DIA.from_scipy(a_sp.todia()), DIA.from_scipy(b_sp.todia())
+    ).to_scipy().tocsr()
+    np.testing.assert_allclose(
+        got.toarray(), (a_sp @ b_sp).toarray(), rtol=1e-4, atol=1e-5
+    )
+
+
+def test_xla_form_poisson():
+    a = generators.poisson2d(16)  # offsets +-16, n=256
+    _xla_form_check(a, a)
+
+
+def test_xla_form_banded_asymmetric():
+    a = generators.banded(512, bandwidth=3, seed=1)
+    b = generators.banded(512, bandwidth=5, seed=2)
+    _xla_form_check(a, b)
+
+
+def test_xla_form_odd_length():
+    # n not a power of two: shifted slices end mid-plane
+    a = generators.banded(300, bandwidth=2, seed=3)
+    _xla_form_check(a, a)

@@ -115,7 +115,7 @@ print("F64 GROUPED OK")
 
 @pytest.mark.slow
 def test_f64_dia_dense_subprocess():
-    """f64 breadth (VERDICT r3 next #3): the DIA plane-FMA and dense-MXU
+    """f64 breadth (VERDICT r3 next #3): the DIA plane-FMA and dense-matmul
     paths compute f64 end-to-end under x64 mode; x64 scipy oracle at
     rtol 1e-12."""
     code = r"""

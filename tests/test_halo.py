@@ -1,5 +1,5 @@
-"""Halo-exchange distributed SpGEMM tests (ragged_all_to_all B-row
-exchange, BASELINE.json config #5) on the 8-virtual-device CPU mesh."""
+"""Halo-exchange distributed SpGEMM tests (B-row exchange over a padded
+all_to_all, BASELINE.json config #5) on the 8-virtual-device CPU mesh."""
 import numpy as np
 import pytest
 from jax.sharding import Mesh

@@ -1,9 +1,8 @@
-"""Pallas fused sort+compress kernel tests, run in interpreter mode on CPU
-(SURVEY.md §7.2: interpreter-mode runs catch logic/OOB errors without TPU)."""
+"""Per-row sort + duplicate-merge tests (ops/sortmerge) against numpy."""
 import numpy as np
 import pytest
 
-from benchmark_spgemm_using_csr_tpu.ops.pallas_kernels import bin_sort_compress
+from benchmark_spgemm_using_csr_tpu.ops.sortmerge import bin_sort_compress
 
 
 def _golden(col, val, n):
@@ -35,9 +34,7 @@ def test_sort_compress_vs_numpy(width, seed):
         col[i, : lens[i]] = rng.integers(0, n, size=lens[i])
         val[i, : lens[i]] = rng.standard_normal(lens[i]).astype(np.float32)
 
-    ocol, oval, pos, cnt = bin_sort_compress(
-        col, val, n_sentinel=n, interpret=True
-    )
+    ocol, oval, pos, cnt = bin_sort_compress(col, val, n_sentinel=n)
     ocol, oval, pos, cnt = map(np.asarray, (ocol, oval, pos, cnt))
 
     gcols, gvals, gcnt = _golden(col, val, n)
@@ -55,7 +52,7 @@ def test_all_duplicates_one_column():
     r, w, n = 8, 16, 10
     col = np.full((r, w), 3, np.int32)
     val = np.ones((r, w), np.float32)
-    ocol, oval, pos, cnt = bin_sort_compress(col, val, n_sentinel=n, interpret=True)
+    ocol, oval, pos, cnt = bin_sort_compress(col, val, n_sentinel=n)
     assert np.all(np.asarray(cnt) == 1)
     tails = np.asarray(pos) < w
     assert np.all(np.asarray(oval)[tails] == w)
@@ -65,6 +62,56 @@ def test_empty_rows():
     r, w, n = 8, 8, 10
     col = np.full((r, w), n, np.int32)
     val = np.zeros((r, w), np.float32)
-    _, _, pos, cnt = bin_sort_compress(col, val, n_sentinel=n, interpret=True)
+    _, _, pos, cnt = bin_sort_compress(col, val, n_sentinel=n)
     assert np.all(np.asarray(cnt) == 0)
     assert np.all(np.asarray(pos) == w)
+
+
+def _tile_golden(key, val, sentinel, cbits, wlr):
+    """Per-tile sorted-unique merge + per-local-row counts, numpy."""
+    out = []
+    for t in range(key.shape[0]):
+        live = key[t] < sentinel
+        uk, inv = np.unique(key[t][live], return_inverse=True)
+        uv = np.zeros(len(uk), np.float64)
+        np.add.at(uv, inv, val[t][live])
+        cnt = np.bincount(uk >> cbits, minlength=wlr)[:wlr]
+        out.append((uk, uv, cnt))
+    return out
+
+
+@pytest.mark.parametrize("width,wlr,cbits", [(16, 2, 4), (64, 4, 6),
+                                             (256, 8, 9)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tile_sort_merge_vs_numpy(width, wlr, cbits, seed):
+    from benchmark_spgemm_using_csr_tpu.ops.sortmerge import tile_sort_merge
+
+    rng = np.random.default_rng(seed)
+    tiles, sentinel = 12, 1 << 30
+    lr = rng.integers(0, wlr, size=(tiles, width))
+    col = rng.integers(0, 1 << cbits, size=(tiles, width))
+    key = ((lr << cbits) | col).astype(np.int32)
+    key[rng.random((tiles, width)) < 0.3] = sentinel
+    key[0] = sentinel  # an all-padding tile
+    val = rng.standard_normal((tiles, width)).astype(np.float32)
+
+    okey, oval, pos, cnt = map(np.asarray, tile_sort_merge(
+        key, val, sentinel=sentinel, wlr=wlr, cbits=cbits))
+    for t, (uk, uv, gcnt) in enumerate(
+            _tile_golden(key, val, sentinel, cbits, wlr)):
+        tails = pos[t] < width
+        order = np.argsort(pos[t][tails])
+        np.testing.assert_array_equal(np.sort(pos[t][tails]),
+                                      np.arange(len(uk)))
+        np.testing.assert_array_equal(okey[t][tails][order], uk)
+        np.testing.assert_allclose(oval[t][tails][order], uv, rtol=1e-5,
+                                   atol=1e-5)
+        assert np.all(okey[t][~tails] == sentinel)
+        assert np.all(oval[t][~tails] == 0)
+        np.testing.assert_array_equal(cnt[t], gcnt)
+
+
+def test_sort_compress_rejects_non_power_of_two_width():
+    col = np.zeros((2, 12), np.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        bin_sort_compress(col, col.astype(np.float32), n_sentinel=5)

@@ -1,6 +1,5 @@
 """Sanitizer-mode runs (SURVEY.md §7.2): jax_debug_nans catches NaN
-production in the numeric paths; Pallas interpret mode catches OOB indexing
-(exercised throughout tests/test_pallas.py)."""
+production in the numeric paths."""
 import jax
 import pytest
 

@@ -1,9 +1,10 @@
 """Regression: runsum_compact_scan fused behind an in-jit producer.
 
-Round-4 finding (2026-08-20): with the sorted stream PRODUCED inside the
+Finding: with the sorted stream PRODUCED inside the
 same jit (2D sort -> reshape(-1) -> scan, the production grouped pipeline),
 streams > 2^23 slots whose group width is not a multiple of the scan block
-computed garbage tails on BOTH XLA:CPU and XLA:TPU — deterministic and
+computed garbage tails on XLA:CPU (and on the first platform's compiler)
+— deterministic and
 content-dependent (a uniform-random stream did NOT trigger it; the
 realistic multi-local-row key structure below does). Flat device-array
 inputs were always correct, implicating a fusion-dependent XLA miscompile;

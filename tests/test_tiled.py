@@ -1,4 +1,4 @@
-"""Tiled (uniform-row, single-dispatch Pallas) SpGEMM vs scipy golden."""
+"""Tiled (uniform-row, single-dispatch) SpGEMM vs scipy golden."""
 import numpy as np
 import pytest
 

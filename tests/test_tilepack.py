@@ -1,4 +1,4 @@
-"""Packed-tile ESC SpGEMM vs scipy golden (Pallas interpret mode on CPU)."""
+"""Packed-tile ESC SpGEMM vs scipy golden."""
 import numpy as np
 import pytest
 
